@@ -3,7 +3,7 @@
 BASELINE.json's first target is "match reference BER/FER on an AWGN sweep".
 The reference's own decoder family is un-normalized flooding/layered min-sum
 with a 40-iteration cap; its CPU golden path (``Coder::decodeCPU``,
-``MyLdpc.cpp:684-784``) is ported to C++ in myldpccppapi_tpu/native and used
+``MyLdpc.cpp:684-784``) is ported to C++ in myldpccppapi/native and used
 here as the reference curve.  For every SNR point the SAME noisy LLR batches
 are decoded by:
 
@@ -50,9 +50,9 @@ def main() -> None:
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import Decoder, DecoderConfig, Encoder, native, wimax
-    from myldpccppapi_tpu.codes import encode_numpy
-    from myldpccppapi_tpu.ops.channel import transmit
+    from myldpccppapi import Decoder, DecoderConfig, Encoder, native, wimax
+    from myldpccppapi.codes import encode_numpy
+    from myldpccppapi.ops.channel import transmit
 
     frames = int(sys.argv[1]) if len(sys.argv) > 1 else 512
     code = wimax(576, "1/2")

@@ -32,9 +32,9 @@ def record(row):
 def make_step(code):
     import jax
 
-    from myldpccppapi_tpu import DecoderConfig
-    from myldpccppapi_tpu.codes.dvbs2 import ira_encode_fn
-    from myldpccppapi_tpu.parallel import make_mesh, make_sharded_campaign_step
+    from myldpccppapi import DecoderConfig
+    from myldpccppapi.codes.dvbs2 import ira_encode_fn
+    from myldpccppapi.parallel import make_mesh, make_sharded_campaign_step
 
     cfg = DecoderConfig(schedule="layered", normalization=0.85, max_iters=30)
     mesh = make_mesh((len(jax.devices()),), ("data",))
@@ -59,7 +59,7 @@ def fer_at(step, snr_db, frames, seed0):
 
 
 def run(rate: str, legacy_points, scan_points):
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2
+    from myldpccppapi.codes.dvbs2 import dvbs2
 
     for name, code in (
         ("legacy", dvbs2(16200, rate, addresses="legacy")),

@@ -1,14 +1,14 @@
 """Sweep min-sum normalization/offset for DVB-S2 64800 r1/2 @1.4 dB.
 
-Reports conv rate, mean iters, tile-max-iters proxy (total_iters), info-bit
-errors, and grouped decode time per 1024-frame batch.
+Reports conv rate, mean iters, batch iterations (total_iters), info-bit
+errors, and decode time per 1024-frame batch.
 """
 import sys, time, dataclasses
 sys.path.insert(0, __import__("os").path.dirname(__import__("os").path.dirname(__import__("os").path.abspath(__file__))))
 import jax, jax.numpy as jnp, numpy as np
-from myldpccppapi_tpu.codes.dvbs2 import dvbs2_ira_qc, ira_encode_numpy
-from myldpccppapi_tpu.utils.config import DecoderConfig
-from myldpccppapi_tpu.ops.pallas_zlane import decode_qc_zlane
+from myldpccppapi.codes.dvbs2 import dvbs2_ira_qc, ira_encode_numpy
+from myldpccppapi.utils.config import DecoderConfig
+from myldpccppapi.decoder import Decoder
 
 code = dvbs2_ira_qc(64800, "1/2")
 rng = np.random.default_rng(0)
@@ -36,11 +36,11 @@ settings = [
 ]
 
 for name, kw in settings:
-    cfg = DecoderConfig(schedule="layered", max_iters=30, **kw)
+    dec = Decoder(code, DecoderConfig(schedule="layered", max_iters=30, **kw))
 
     @jax.jit
     def run(llr):
-        res = decode_qc_zlane(code, cfg, llr)
+        res = dec(llr)
         berr = jnp.sum((res.bits[:, :code.k].astype(jnp.int8)
                         != u_dev).astype(jnp.int32))
         return (jnp.sum(res.iterations), jnp.sum(res.converged),

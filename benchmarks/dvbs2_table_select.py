@@ -32,10 +32,10 @@ def eval_seed(n: int, seed: int) -> dict:
     import jax
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import DecoderConfig
-    from myldpccppapi_tpu.codes.dvbs2 import (dvbs2_ira_qc, ira_encode_fn,
+    from myldpccppapi import DecoderConfig
+    from myldpccppapi.codes.dvbs2 import (dvbs2_ira_qc, ira_encode_fn,
                                               synthetic_address_table)
-    from myldpccppapi_tpu.parallel import make_mesh, make_sharded_campaign_step
+    from myldpccppapi.parallel import make_mesh, make_sharded_campaign_step
 
     code = dvbs2_ira_qc(n, "1/2",
                         addresses=synthetic_address_table(n, "1/2", seed))

@@ -15,14 +15,14 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from myldpccppapi_tpu.codes.design import (  # noqa: E402
+from myldpccppapi.codes.design import (  # noqa: E402
     _dvbs2_dims, realize_dvbs2_addresses,
 )
-from myldpccppapi_tpu.codes.dvbs2 import dvbs2_ira_qc  # noqa: E402
-from myldpccppapi_tpu.codes.pexit import threshold_ebn0  # noqa: E402
+from myldpccppapi.codes.dvbs2 import dvbs2_ira_qc  # noqa: E402
+from myldpccppapi.codes.pexit import threshold_ebn0  # noqa: E402
 
 OUT = (pathlib.Path(__file__).resolve().parent.parent
-       / "myldpccppapi_tpu" / "codes" / "dvbs2_designed.py")
+       / "myldpccppapi" / "codes" / "dvbs2_designed.py")
 
 HEADER = '''\
 """PEXIT-designed DVB-S2 synthetic address tables (generated data).

@@ -1,4 +1,4 @@
-"""Regenerate myldpccppapi_tpu/codes/nr_designed.py from optimizer outputs.
+"""Regenerate myldpccppapi/codes/nr_designed.py from optimizer outputs.
 
 Usage: python benchmarks/gen_designed_supports.py bg2=/tmp/bg2_opt.npy [bg1=...]
 
@@ -14,10 +14,10 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from myldpccppapi_tpu.codes.design import _threshold, _valid  # noqa: E402
+from myldpccppapi.codes.design import _threshold, _valid  # noqa: E402
 
 OUT = (pathlib.Path(__file__).resolve().parent.parent
-       / "myldpccppapi_tpu" / "codes" / "nr_designed.py")
+       / "myldpccppapi" / "codes" / "nr_designed.py")
 
 HEADER = '''\
 """PEXIT-designed synthetic NR base-graph supports (generated data).

@@ -23,8 +23,8 @@ def record(row):
 
 
 def main():
-    from myldpccppapi_tpu.codes import dvbs2, nr_code, rs_ldpc, wifi, wimax
-    from myldpccppapi_tpu.ops.impulse import impulse_probe
+    from myldpccppapi.codes import dvbs2, nr_code, rs_ldpc, wifi, wimax
+    from myldpccppapi.ops.impulse import impulse_probe
 
     cases = [
         ("wimax_576_1/2", wimax(576, "1/2")),

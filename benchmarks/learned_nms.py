@@ -1,4 +1,4 @@
-"""Train and evaluate learned min-sum weight schedules on chip.
+"""Train and evaluate learned min-sum weight schedules.
 
 Two experiments (results appended to results.jsonl, weights saved as JSON
 artifacts):
@@ -6,12 +6,12 @@ artifacts):
 1. ``headline``: wimax 576 3/4B @5 dB (the headline operating point).
    Trains the kernel-servable TIED per-layer schedule and compares mean
    iterations / straggler fraction / errors against the shipped 0.75
-   scalar on the fused Pallas kernel — fewer iterations at equal quality
-   = direct throughput.
+   scalar through the standard dispatch — fewer iterations at equal
+   quality = direct throughput.
 2. ``fer``: wimax 576 1/2 at a FIXED 10-iteration budget.  Trains a full
    per-iteration x per-layer schedule and measures FER at 2.0/2.5/3.0 dB
    vs the 0.75 scalar (jnp path serves the schedule; the per-layer
-   collapse is also measured on the fused kernel), with sum-product as
+   collapse also runs through the standard dispatch), with sum-product as
    the quality ceiling reference.
 
 Usage: python benchmarks/learned_nms.py [headline] [fer]
@@ -27,11 +27,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from myldpccppapi_tpu import DecoderConfig, Encoder, wimax
-from myldpccppapi_tpu.codes import encode_numpy
-from myldpccppapi_tpu.ops.bp import decode_qc
-from myldpccppapi_tpu.ops.learned import train_nms
-from myldpccppapi_tpu.ops.pallas_bp import decode_qc_pallas
+from myldpccppapi import DecoderConfig, Encoder, wimax
+from myldpccppapi.codes import encode_numpy
+from myldpccppapi.ops.bp import decode_qc
+from myldpccppapi.ops.learned import train_nms
+from myldpccppapi.decoder import Decoder
 
 RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "results.jsonl")
@@ -107,7 +107,7 @@ def headline():
                                        offset=b)),
     ]:
         stats = _eval_batches(
-            code, u, cw, lambda llr, c=cfg: decode_qc_pallas(code, c, llr),
+            code, u, cw, Decoder(code, cfg),
             snr_db=5.0, n_draws=8, batch=batch,
         )
         record({"config": "learned_nms_headline", "setting": name,
@@ -136,17 +136,17 @@ def fer():
          DecoderConfig(schedule="layered", normalization=0.75, max_iters=10),
          "jnp"),
         ("learned_iter_jnp", cfg_iter, "jnp"),
-        ("learned_layer_pallas",
+        ("learned_layer_auto",
          DecoderConfig(schedule="layered", normalization=a_l, offset=b_l,
-                       max_iters=10), "pallas"),
+                       max_iters=10), "auto"),
         ("sumproduct_jnp",
          DecoderConfig(schedule="layered", algorithm="sum-product",
                        max_iters=10), "jnp"),
     ]
     for snr_db in (2.0, 2.5, 3.0):
         for name, cfg, impl in settings:
-            if impl == "pallas":
-                dec = lambda llr, c=cfg: decode_qc_pallas(code, c, llr)
+            if impl == "auto":
+                dec = Decoder(code, cfg)
             else:
                 dec = lambda llr, c=cfg: decode_qc(code, c, llr)
             stats = _eval_batches(code, u, cw, dec, snr_db=snr_db,
@@ -158,10 +158,9 @@ def fer():
 
 def bg2():
     """Second family: NR BG2 Z=384 (n=19968, unpunctured) at a fixed
-    8-iteration budget on the z-lane kernel — per-layer learned weights
-    are kernel-servable there too (static layer unroll)."""
-    from myldpccppapi_tpu.codes.nr import nr_code, triangular_encode_fn
-    from myldpccppapi_tpu.ops.pallas_zlane import decode_qc_zlane
+    8-iteration budget, per-layer learned weights through the standard
+    dispatch."""
+    from myldpccppapi.codes.nr import nr_code, triangular_encode_fn
 
     code = nr_code(z=384, bg=2)
     enc = triangular_encode_fn(code)
@@ -173,13 +172,12 @@ def bg2():
     t0 = time.time()
     # 42 layers need more data + the L2 pull: an unregularized 200-step run
     # overfit to alphas up to 1.5 that stalled syndrome clearance entirely
-    # (results.jsonl learned_nms_bg2 rows of 2026-08-19, conv ~0).
+    # (conv ~0).
     # Operating range tracks the PEXIT-designed BG2 default (cliff at
     # -3.25..-3.0 dB; the legacy table's was -1.5..-1.0).  Train AT and
     # above the cliff: a range dominated by hopeless frames (-4.0, -2.75)
-    # drove the tied weights to conv=0 everywhere (results.jsonl
-    # 2026-08-19 second block) — soft-BER gradients from unconvergeable
-    # samples are pure noise.
+    # drove the tied weights to conv=0 everywhere — soft-BER gradients
+    # from unconvergeable samples are pure noise.
     lw = train_nms(code, n_iters=8, steps=400, batch=256,
                    snr_db=(-3.0, -1.75), lr=0.01, seed=0, tie_iters=True,
                    reg_to_init=2e-3)
@@ -190,7 +188,7 @@ def bg2():
     settings = [
         ("default0.75", DecoderConfig(schedule="layered", normalization=0.75,
                                       max_iters=8)),
-        ("learned_layer_zlane",
+        ("learned_layer",
          DecoderConfig(schedule="layered", normalization=a, offset=b,
                        max_iters=8)),
     ]
@@ -198,7 +196,7 @@ def bg2():
         for name, cfg in settings:
             stats = _eval_batches(
                 code, u, cw,
-                lambda llr, c=cfg: decode_qc_zlane(code, c, llr),
+                Decoder(code, cfg),
                 snr_db=snr_db, n_draws=8, batch=batch, budget=8,
             )
             record({"config": "learned_nms_bg2", "setting": name,

@@ -2,12 +2,13 @@
 
 The sharded campaign step (`parallel/sim.py:make_sharded_campaign_step`)
 is the framework's answer to running a BER/FER waterfall "batch-sharded
-across N>=2 hosts with psum'd frame-error stats".  No multi-host TPU pod is
-reachable from this rig, but the multi-host *software* path — separate
-processes, `jax.distributed.initialize`, a global mesh spanning devices the
-local process cannot address, and cross-process collectives over a network
-transport (Gloo/TCP here; ICI/DCN on a pod) — can be exercised for real
-with N CPU processes on one box.  That is strictly stronger than the
+across N>=2 hosts with psum'd frame-error stats".  The multi-host
+*software* path — separate processes, `jax.distributed.initialize`, a
+global mesh spanning devices the local process cannot address, and
+cross-process collectives over a network transport (Gloo/TCP here) — is
+exercised for real with N CPU processes on one box.  Every worker is pinned
+to the CPU backend: a JAX process reserves most of a GPU's memory when it
+first uses it, so processes sharing one card would fail for want of memory.  That is strictly stronger than the
 single-process virtual mesh in `benchmarks/scaling.py`: the psum really
 crosses process boundaries over TCP.
 
@@ -48,16 +49,16 @@ def _free_port() -> int:
 
 def _build_code(args):
     if args.family == "wimax":
-        from myldpccppapi_tpu import wimax
+        from myldpccppapi import wimax
         return wimax(args.n, args.rate)
     if args.family == "wifi":
-        from myldpccppapi_tpu import wifi
+        from myldpccppapi import wifi
         return wifi(args.n, args.rate)
     if args.family == "nr":
-        from myldpccppapi_tpu.codes.nr import nr_code
+        from myldpccppapi.codes.nr import nr_code
         return nr_code(z=args.z, bg=args.bg)
     if args.family == "dvbs2":
-        from myldpccppapi_tpu.codes.dvbs2 import dvbs2_ira_qc
+        from myldpccppapi.codes.dvbs2 import dvbs2_ira_qc
         return dvbs2_ira_qc(args.n, args.rate)
     raise ValueError(f"unknown family {args.family}")
 
@@ -66,6 +67,7 @@ def worker(args) -> dict:
     """One process of the N-process campaign.  Returns stats dict (rank 0)."""
     import jax
 
+    # pinned to the CPU (module docstring): one process per card at most
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", args.local_devices)
     if args.nproc > 1:
@@ -77,8 +79,8 @@ def worker(args) -> dict:
     import jax.numpy as jnp
     import numpy as np
 
-    from myldpccppapi_tpu import DecoderConfig
-    from myldpccppapi_tpu.parallel import make_mesh, make_sharded_campaign_step
+    from myldpccppapi import DecoderConfig
+    from myldpccppapi.parallel import make_mesh, make_sharded_campaign_step
 
     code = _build_code(args)
     cfg = DecoderConfig(schedule=args.schedule, normalization=args.norm,

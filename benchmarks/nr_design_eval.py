@@ -38,9 +38,9 @@ def record(row):
 def make_step(code):
     import jax
 
-    from myldpccppapi_tpu import DecoderConfig
-    from myldpccppapi_tpu.codes.nr import triangular_encode_fn
-    from myldpccppapi_tpu.parallel import make_mesh, make_sharded_campaign_step
+    from myldpccppapi import DecoderConfig
+    from myldpccppapi.codes.nr import triangular_encode_fn
+    from myldpccppapi.parallel import make_mesh, make_sharded_campaign_step
 
     cfg = DecoderConfig(schedule="layered", normalization=0.8, max_iters=30)
     mesh = make_mesh((len(jax.devices()),), ("data",))
@@ -65,8 +65,8 @@ def fer_at(step, snr_db, frames, seed0):
 
 
 def designed_code(z=384, shift_seed=0):
-    from myldpccppapi_tpu.codes.nr import nr_base_graph, nr_code
-    from myldpccppapi_tpu.codes.nr_designed import designed_support
+    from myldpccppapi.codes.nr import nr_base_graph, nr_code
+    from myldpccppapi.codes.nr_designed import designed_support
 
     tab = nr_base_graph(2, support=designed_support(2), seed=shift_seed)
     return nr_code(z=z, bg=2, table=tab)
@@ -74,7 +74,7 @@ def designed_code(z=384, shift_seed=0):
 
 def cmd_compare():
     """Old default vs designed (shift seed 0) at the old knee/tail."""
-    from myldpccppapi_tpu.codes.nr import nr_code
+    from myldpccppapi.codes.nr import nr_code
 
     for name, code in (("default_synth", nr_code(z=384, bg=2)),
                        ("designed", designed_code())):

@@ -34,9 +34,9 @@ def eval_seed(bg: int, seed: int) -> dict:
     import jax
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import DecoderConfig
-    from myldpccppapi_tpu.codes.nr import nr_base_graph, nr_code, triangular_encode_fn
-    from myldpccppapi_tpu.parallel import make_mesh, make_sharded_campaign_step
+    from myldpccppapi import DecoderConfig
+    from myldpccppapi.codes.nr import nr_base_graph, nr_code, triangular_encode_fn
+    from myldpccppapi.parallel import make_mesh, make_sharded_campaign_step
 
     code = nr_code(z=384, bg=bg, table=nr_base_graph(bg, seed=seed))
     cfg = DecoderConfig(schedule="layered", normalization=0.8, max_iters=30)

@@ -1,17 +1,10 @@
-"""Self-corrected min-sum (SCMS, Savin 2008) measured on chip.
+"""Self-corrected min-sum (SCMS, Savin 2008) error-rate experiment.
 
 Same fixed-budget FER harness as the learned-NMS experiments
 (BENCH_NOTES round 4): wimax 576 r1/2 at a 10-iteration budget, paired
 noise batches, plain min-sum vs SCMS vs tuned NMS(0.75).  SCMS's pitch
 is NMS-class error correction WITHOUT a tuned constant — the erasure
-rule adapts per message.
-
-Since round 5 SCMS ALSO runs on the fused flooding kernel at zero extra
-VMEM (the message scratch stores sent Q instead of R — ops/pallas_bp.py),
-so it is a production-rate tier, not just a quality one.
-``--throughput`` measures it with the standard two-depth-fit methodology:
-fused SCMS vs fused plain MS vs fused NMS(0.75) vs jnp SCMS (config
-"scms_tput" in results.jsonl).
+rule adapts per message.  SCMS runs on the jnp flooding path.
 """
 from __future__ import annotations
 
@@ -30,9 +23,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import Decoder, DecoderConfig, Encoder, wimax
-    from myldpccppapi_tpu.codes import encode_numpy
-    from myldpccppapi_tpu.ops.channel import transmit
+    from myldpccppapi import Decoder, DecoderConfig, Encoder, wimax
+    from myldpccppapi.codes import encode_numpy
+    from myldpccppapi.ops.channel import transmit
 
     code = wimax(576, "1/2")
     enc = Encoder(code)
@@ -92,70 +85,5 @@ def main():
            "budget_iters": budget, "sweep": rows})
 
 
-def throughput():
-    """Two-depth-fit decode rates for the SCMS kernel tier (run on TPU)."""
-    import jax
-    import jax.numpy as jnp
-
-    from run_baseline import _depth_fit, _fit_record, _pipe_rounds
-    from myldpccppapi_tpu import Decoder, DecoderConfig, Encoder, wimax
-    from myldpccppapi_tpu.codes import encode_numpy
-    from myldpccppapi_tpu.ops.channel import transmit
-
-    code = wimax(576, "1/2")
-    enc = Encoder(code)
-    rng = np.random.default_rng(0)
-    batch, budget, snr_db = 8192, 10, 2.5
-    u = rng.integers(0, 2, size=(batch, code.k), dtype=np.uint8)
-    cw = jnp.asarray(encode_numpy(enc.mats, u))
-
-    @jax.jit
-    def make_llr(i):
-        return transmit(jax.random.PRNGKey(7_000_000 + i), cw,
-                        snr_db=snr_db)[0]
-
-    variants = {
-        "scms_pallas": DecoderConfig(
-            algorithm="min-sum", schedule="flooding", max_iters=budget,
-            self_correction=True, implementation="pallas"),
-        "ms_pallas": DecoderConfig(
-            algorithm="min-sum", schedule="flooding", max_iters=budget,
-            implementation="pallas"),
-        "nms075_pallas": DecoderConfig(
-            algorithm="min-sum", schedule="flooding", max_iters=budget,
-            normalization=0.75, implementation="pallas"),
-        "scms_jnp": DecoderConfig(
-            algorithm="min-sum", schedule="flooding", max_iters=budget,
-            self_correction=True, implementation="jnp"),
-    }
-    bits_per_dispatch = batch * code.k
-    row = {"config": "scms_tput",
-           "name": "scms_kernel_rate_wimax576_r12_b10_2p5dB",
-           "batch": batch, "budget_iters": budget, "snr_db": snr_db}
-    for name, cfg in variants.items():
-        dec = Decoder(code, cfg)
-
-        @jax.jit
-        def one(llr, d=dec):
-            res = d(llr)
-            return jnp.stack([jnp.sum(res.iterations),
-                              jnp.sum(jnp.where(res.converged, 1, 0))])
-
-        n_pipe = 8 if name == "scms_jnp" else 32
-        dt_hi, agg = _pipe_rounds(one, make_llr, n_pipe)
-        dt_lo, n_lo = _depth_fit(one, make_llr, n_pipe)
-        fit = _fit_record(dt_hi, n_pipe, dt_lo, n_lo, bits_per_dispatch)
-        fit["conv"] = round(float(agg[1]) / (n_pipe * batch), 4)
-        fit["iters_mean"] = round(float(agg[0]) / (n_pipe * batch), 2)
-        row[name] = fit
-        print(f"[scms_tput] {name}: {fit['marginal_mbits']} Mbit/s "
-              f"({fit['per_dispatch_ms']} ms/dispatch, conv {fit['conv']})",
-              file=sys.stderr, flush=True)
-    _emit(row)
-
-
 if __name__ == "__main__":
-    if "--throughput" in sys.argv:
-        throughput()
-    else:
-        main()
+    main()

@@ -20,7 +20,7 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from myldpccppapi_tpu.codes import (  # noqa: E402
+from myldpccppapi.codes import (  # noqa: E402
     dvbs2, nr_code, protograph, regular, rs_ldpc, threshold_ebn0, wifi, wimax,
 )
 

@@ -33,7 +33,7 @@ def sweep(code, enc_bits, snrs, batch, group, triage_settings, base_cfg):
     import jax
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import Decoder
+    from myldpccppapi import Decoder
 
     rng = np.random.default_rng(0)
     u = rng.integers(0, 2, size=(batch, code.k), dtype=np.uint8)
@@ -94,8 +94,8 @@ def sweep(code, enc_bits, snrs, batch, group, triage_settings, base_cfg):
 def main():
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import DecoderConfig, Encoder, wifi, wimax
-    from myldpccppapi_tpu.codes import encode_numpy
+    from myldpccppapi import DecoderConfig, Encoder, wifi, wimax
+    from myldpccppapi.codes import encode_numpy
 
     settings = [(0, 0.125), (3, 0.125), (5, 0.125), (8, 0.125), (5, 0.25)]
     all_rows = []

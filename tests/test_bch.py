@@ -1,11 +1,11 @@
-"""Outer BCH code (codes/bch.py): field construction, MXU attach/check,
+"""Outer BCH code (codes/bch.py): field construction, matmul attach/check,
 host-side Berlekamp-Massey correction, and the DVB-S2 concatenated flow."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu.codes.bch import (
+from myldpccppapi.codes.bch import (
     _minimal_poly,
     bch_attach_fn,
     bch_check_fn,
@@ -108,8 +108,8 @@ def test_concatenated_dvbs2_flow():
     attach -> LDPC encode -> AWGN -> LDPC decode -> BCH detect; a residual
     error pattern (unconverged LDPC frame) is repaired by the host BCH
     corrector when within t."""
-    from myldpccppapi_tpu import Decoder, DecoderConfig
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2, ira_encode_numpy
+    from myldpccppapi import Decoder, DecoderConfig
+    from myldpccppapi.codes.dvbs2 import dvbs2, ira_encode_numpy
 
     code = dvbs2(16200, "1/2")   # k_ldpc = 7200 = n_bch
     m, t, par = bch_params_dvbs2(16200, "1/2")
@@ -148,9 +148,9 @@ def test_sim_step_outer_bch():
     detection (the --bch waterfall path)."""
     from functools import partial
 
-    from myldpccppapi_tpu import DecoderConfig
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2
-    from myldpccppapi_tpu.parallel.sim import sim_step
+    from myldpccppapi import DecoderConfig
+    from myldpccppapi.codes.dvbs2 import dvbs2
+    from myldpccppapi.parallel.sim import sim_step
 
     code = dvbs2(16200, "1/2")
     cfg = DecoderConfig(schedule="layered", normalization=0.85, max_iters=25)

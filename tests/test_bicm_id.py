@@ -12,7 +12,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from myldpccppapi_tpu.ops.modulation import (
+from myldpccppapi.ops.modulation import (
     Modulation, apsk16, demap_llr, make_modulation, modulate, psk8, qam16,
     qam64,
 )
@@ -84,9 +84,9 @@ def test_prior_only_app_equals_prior_for_product_labelings():
 
 
 def test_bicm_id_zero_outer_equals_oneshot():
-    from myldpccppapi_tpu import Decoder, DecoderConfig
-    from myldpccppapi_tpu.codes import wimax
-    from myldpccppapi_tpu.ops.bicm_id import make_bicm_id_receive
+    from myldpccppapi import Decoder, DecoderConfig
+    from myldpccppapi.codes import wimax
+    from myldpccppapi.ops.bicm_id import make_bicm_id_receive
 
     code = wimax(576, "1/2")
     cfg = DecoderConfig(schedule="layered", normalization=0.75, max_iters=15)
@@ -110,10 +110,10 @@ def test_bicm_id_loop_recovers_clean_frames_nongray():
     """Two outer exchanges on a NON-Gray (natural-binary) 8PSK at a clean
     operating point: every frame must decode to the transmitted codeword,
     and the loop must be jittable end-to-end."""
-    from myldpccppapi_tpu import DecoderConfig, Encoder
-    from myldpccppapi_tpu.codes import wimax
-    from myldpccppapi_tpu.ops.bicm_id import make_bicm_id_receive
-    from myldpccppapi_tpu.ops.modulation import _bits_of
+    from myldpccppapi import DecoderConfig, Encoder
+    from myldpccppapi.codes import wimax
+    from myldpccppapi.ops.bicm_id import make_bicm_id_receive
+    from myldpccppapi.ops.modulation import _bits_of
 
     code = wimax(576, "1/2")
     enc = Encoder(code)
@@ -143,9 +143,9 @@ def test_bicm_id_interleaver_roundtrip():
     """Extrinsic feedback must traverse the interleaver both directions:
     with a random permutation pair, n_outer=0 must equal the one-shot
     deinterleaved decode bit-for-bit."""
-    from myldpccppapi_tpu import Decoder, DecoderConfig
-    from myldpccppapi_tpu.codes import wimax
-    from myldpccppapi_tpu.ops.bicm_id import make_bicm_id_receive
+    from myldpccppapi import Decoder, DecoderConfig
+    from myldpccppapi.codes import wimax
+    from myldpccppapi.ops.bicm_id import make_bicm_id_receive
 
     code = wimax(576, "1/2")
     cfg = DecoderConfig(schedule="layered", normalization=0.75, max_iters=12)
@@ -177,9 +177,9 @@ def test_bicm_id_sharded_campaign_step():
     run on the (snr x data) mesh, and count every frame."""
     import jax
 
-    from myldpccppapi_tpu import DecoderConfig
-    from myldpccppapi_tpu.codes import wimax
-    from myldpccppapi_tpu.parallel import make_mesh, make_sharded_campaign_step
+    from myldpccppapi import DecoderConfig
+    from myldpccppapi.codes import wimax
+    from myldpccppapi.parallel import make_mesh, make_sharded_campaign_step
 
     code = wimax(576, "1/2")
     cfg = DecoderConfig(schedule="layered", normalization=0.75, max_iters=6)

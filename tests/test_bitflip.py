@@ -6,10 +6,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from myldpccppapi_tpu import Encoder, wimax
-from myldpccppapi_tpu.codes import encode_numpy, rs_ldpc
-from myldpccppapi_tpu.ops.bitflip import GDBFConfig, decode_gdbf
-from myldpccppapi_tpu.ops.channel import transmit
+from myldpccppapi import Encoder, wimax
+from myldpccppapi.codes import encode_numpy, rs_ldpc
+from myldpccppapi.ops.bitflip import GDBFConfig, decode_gdbf
+from myldpccppapi.ops.channel import transmit
 
 
 def _case(code, batch, snr_db, seed=0, mats=None):
@@ -91,7 +91,7 @@ def test_early_exit_false_runs_full_budget():
 # ---------------------------------------------------------------------------
 
 def test_decoder_facade_gdbf():
-    from myldpccppapi_tpu import Decoder
+    from myldpccppapi import Decoder
 
     code = wimax(576, "1/2")
     u, c, llr = _case(code, 32, 7.5, seed=6)
@@ -104,15 +104,15 @@ def test_decoder_facade_gdbf():
 
 
 def test_decoder_facade_gdbf_rejects_edgelist_codes():
-    from myldpccppapi_tpu import Decoder
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2_oracle
+    from myldpccppapi import Decoder
+    from myldpccppapi.codes.dvbs2 import dvbs2_oracle
 
     with pytest.raises(ValueError, match="block-structured"):
         Decoder(dvbs2_oracle(16200, "1/2"), GDBFConfig())
 
 
 def test_coder_bf_decode_type_roundtrip():
-    from myldpccppapi_tpu import Coder
+    from myldpccppapi import Coder
 
     coder = Coder(288, 576, "1/2")
     coder.for_encoder()
@@ -126,7 +126,7 @@ def test_coder_bf_decode_type_roundtrip():
 
 
 def test_coder_bf_rejects_crc():
-    from myldpccppapi_tpu import make_codec
+    from myldpccppapi import make_codec
 
     coder = make_codec("wimax", 576, "1/2", crc="16")
     coder.for_decoder(8)

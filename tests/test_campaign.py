@@ -4,8 +4,8 @@ import json
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu.campaign import CampaignConfig, PointStats, WaterfallCampaign
-from myldpccppapi_tpu.parallel.sim import SimStats
+from myldpccppapi.campaign import CampaignConfig, PointStats, WaterfallCampaign
+from myldpccppapi.parallel.sim import SimStats
 
 
 def _fake_step(fer_by_snr):

@@ -3,7 +3,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from myldpccppapi_tpu.ops.channel import (
+from myldpccppapi.ops.channel import (
     awgn,
     bpsk_modulate,
     channel_llr,

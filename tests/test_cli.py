@@ -4,7 +4,7 @@ import json
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu.cli import _parse_snr_grid, build_parser, main
+from myldpccppapi.cli import _parse_snr_grid, build_parser, main
 
 
 def test_snr_grid_parsing():
@@ -102,7 +102,7 @@ def test_design_subcommand(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "designed threshold:" in text
     # the saved table loads back as a valid code
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2, parse_address_table
+    from myldpccppapi.codes.dvbs2 import dvbs2, parse_address_table
 
     code = dvbs2(16200, "1/2", addresses=parse_address_table(out.read_text()))
     assert code.n == 16200

@@ -4,7 +4,7 @@ scenario as the reference CLI harness (``Test.cpp:15-118``): known plaintext
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu import Coder
+from myldpccppapi import Coder
 
 
 def _plaintext(n):  # 'a' + i % 26, like Test.cpp:44
@@ -57,7 +57,7 @@ def test_bad_k_raises():
 def test_make_codec_roundtrip(family, kwargs):
     """Byte-stream facade for every family: encode -> light noise ->
     decode recovers the exact source bytes."""
-    from myldpccppapi_tpu.coder import make_codec
+    from myldpccppapi.coder import make_codec
 
     codec = make_codec(family, **kwargs)
     codec.for_encoder()
@@ -77,7 +77,7 @@ def test_make_codec_roundtrip(family, kwargs):
 def test_make_codec_wimax_matches_reference_coder():
     """make_codec('wimax') must behave exactly like the reference-style
     constructor (same stream bytes)."""
-    from myldpccppapi_tpu.coder import make_codec
+    from myldpccppapi.coder import make_codec
 
     a = make_codec("wimax", n=576, rate="1/2")
     b = Coder(288, 576, "1/2")
@@ -88,7 +88,7 @@ def test_make_codec_wimax_matches_reference_coder():
 
 
 def test_make_codec_unknown_family():
-    from myldpccppapi_tpu.coder import make_codec
+    from myldpccppapi.coder import make_codec
 
     with pytest.raises(ValueError):
         make_codec("polar")
@@ -100,7 +100,7 @@ def test_make_codec_crc_roundtrip():
     acceptance split (TS 38.212 §5.1 layout)."""
     import numpy as np
 
-    from myldpccppapi_tpu.coder import make_codec
+    from myldpccppapi.coder import make_codec
 
     coder = make_codec("wimax", 576, "1/2", crc="16")
     assert coder._kb == (288 - 16) // 8
@@ -123,7 +123,7 @@ def test_coder_crc_rejects_forged_codeword():
     not be accepted by the byte-stream decode path."""
     import numpy as np
 
-    from myldpccppapi_tpu.coder import make_codec
+    from myldpccppapi.coder import make_codec
 
     coder = make_codec("wimax", 576, "1/2", crc="16")
     coder.for_encoder()
@@ -134,8 +134,8 @@ def test_coder_crc_rejects_forged_codeword():
     # is to corrupt one payload byte and re-encode, then present the OLD
     # CRC's frame as soft values -- instead, decode soft values of a
     # codeword built from an info block with a mismatched CRC field
-    from myldpccppapi_tpu.codes.encoder import Encoder, encode_numpy
-    from myldpccppapi_tpu.ops.packing import unpack_bits_np
+    from myldpccppapi.codes.encoder import Encoder, encode_numpy
+    from myldpccppapi.ops.packing import unpack_bits_np
 
     bits = unpack_bits_np(np.asarray(prior, np.uint8))[: 576].copy()
     info = bits[: 288].copy()
@@ -150,30 +150,35 @@ def test_coder_crc_rejects_forged_codeword():
 
 
 def test_mscl_long_code_routes_to_fused_layered(monkeypatch):
-    """MSCL names the reference's FUSED decoder (MyLdpc.h:37-39); on codes
-    beyond the flooding kernel's n ~ 6000 cap it must land on a fused
-    LAYERED kernel with a warning — not silently on ~70x-slower jnp
-    flooding (VERDICT r4 weak #5)."""
-    import myldpccppapi_tpu.coder as coder_mod
-    from myldpccppapi_tpu.coder import make_codec
+    """MSCL names the reference's FUSED flooding decoder (MyLdpc.h:37-39).
+    On a GPU it lands on the fused CUDA kernel where that kernel serves the
+    code; elsewhere it decodes on the jnp flooding path with a warning
+    instead of silently (VERDICT r4 weak #5).  Flooding semantics and the
+    reference's 120-iteration cap stay either way."""
+    import myldpccppapi.decoder as decoder_mod
+    from myldpccppapi.coder import make_codec
 
-    class _FakeTpu:
-        platform = "tpu"
+    class _FakeGpu:
+        platform = "gpu"
 
-    monkeypatch.setattr(coder_mod.jax, "devices", lambda: [_FakeTpu()])
+    monkeypatch.setattr(decoder_mod.jax, "devices", lambda *a: [_FakeGpu()])
     coder = make_codec("dvbs2", 16200, "1/2")
     coder.for_decoder(64)
-    with pytest.warns(UserWarning, match="LAYERED"):
+    with pytest.warns(UserWarning, match="jnp/XLA flooding"):
         coder.add_decode_type("MSCL")
     dec = coder._decoders["MSCL"]
-    assert dec.config.schedule == "layered"
+    assert dec.config.schedule == "flooding"
     assert dec.config.max_iters == 120  # the reference MSCL cap stays
-    assert dec.implementation in ("pallas_zlane", "pallas_stream")
+    assert dec.implementation == "jnp"
 
-    # short codes keep exact flooding semantics on the flooding kernel
+    # short codes keep exact flooding semantics on the fused kernel
+    import warnings
+
     coder2 = Coder(432, 576, "3/4B")
     coder2.for_decoder(64)
-    coder2.add_decode_type("MSCL")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        coder2.add_decode_type("MSCL")
     dec2 = coder2._decoders["MSCL"]
     assert dec2.config.schedule == "flooding"
-    assert dec2.implementation == "pallas"
+    assert dec2.implementation == "cuda"

@@ -8,9 +8,9 @@ Checks the construction rules the reference implements in
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu.codes import wimax, wifi
-from myldpccppapi_tpu.codes.base_matrices import WIMAX_SEEDS
-from myldpccppapi_tpu.codes.gf2 import gf2_inv, gf2_matmul, gf2_rank
+from myldpccppapi.codes import wimax, wifi
+from myldpccppapi.codes.base_matrices import WIMAX_SEEDS
+from myldpccppapi.codes.gf2 import gf2_inv, gf2_matmul, gf2_rank
 
 ALL_WIMAX_RATES = sorted(WIMAX_SEEDS)
 
@@ -76,7 +76,7 @@ def test_wifi_full_table_set():
     encodes at the nominal rate)."""
     import numpy as np
 
-    from myldpccppapi_tpu.codes.base_matrices import WIFI_SEEDS
+    from myldpccppapi.codes.base_matrices import WIFI_SEEDS
 
     assert len(WIFI_SEEDS) == 12
     for n in (648, 1296, 1944):
@@ -124,9 +124,9 @@ def test_wifi_roundtrip_each_length():
     import jax
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import Decoder, DecoderConfig, Encoder
-    from myldpccppapi_tpu.codes import encode_numpy
-    from myldpccppapi_tpu.ops.channel import transmit
+    from myldpccppapi import Decoder, DecoderConfig, Encoder
+    from myldpccppapi.codes import encode_numpy
+    from myldpccppapi.ops.channel import transmit
 
     rng = np.random.default_rng(0)
     for (n, rate) in ((648, "3/4"), (1296, "2/3"), (1944, "3/4")):
@@ -148,8 +148,8 @@ def test_qc_syndrome_matches_dense():
     blocks and masked wrap rows (DVB-S2 short frame exercises both)."""
     import numpy as np
 
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2_ira_qc
-    from myldpccppapi_tpu.codes.wimax import wimax
+    from myldpccppapi.codes.dvbs2 import dvbs2_ira_qc
+    from myldpccppapi.codes.wimax import wimax
 
     rng = np.random.default_rng(7)
     for code in (wimax(576, "3/4B"), dvbs2_ira_qc(16200, "8/9")):

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu.codes.crc import (
+from myldpccppapi.codes.crc import (
     CRC_POLYS, crc_attach_fn, crc_check_fn, crc_matrix, crc_numpy,
 )
 
@@ -53,8 +53,8 @@ def test_attach_check_device():
 def test_crc_aided_nr_decode():
     """38.212-style flow: CRC24B-attached payload fills the NR code block;
     after LDPC decode the CRC accepts exactly the correctly decoded frames."""
-    from myldpccppapi_tpu import Decoder, DecoderConfig
-    from myldpccppapi_tpu.codes.nr import nr_code, triangular_encode_fn
+    from myldpccppapi import Decoder, DecoderConfig
+    from myldpccppapi.codes.nr import nr_code, triangular_encode_fn
 
     code = nr_code(z=16, bg=1)
     k_payload = code.k - 24

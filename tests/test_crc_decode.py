@@ -15,12 +15,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu import Decoder, DecoderConfig, wimax
-from myldpccppapi_tpu.codes.crc import CRC_POLYS, crc_attach_fn
-from myldpccppapi_tpu.codes.regular import regular
-from myldpccppapi_tpu.ops.bp import crc_fail_fn, decode_qc
-from myldpccppapi_tpu.ops.crc_accept import decode_with_crc_accept
-from myldpccppapi_tpu.parallel.sim import matmul_encode_fn, sim_step
+from myldpccppapi import Decoder, DecoderConfig, wimax
+from myldpccppapi.codes.crc import CRC_POLYS, crc_attach_fn
+from myldpccppapi.codes.regular import regular
+from myldpccppapi.ops.bp import crc_fail_fn, decode_qc
+from myldpccppapi.ops.crc_accept import decode_with_crc_accept
+from myldpccppapi.parallel.sim import matmul_encode_fn, sim_step
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +73,7 @@ def test_crc_rejects_wrong_codeword(wimax12, impl, schedule):
 def test_crc_accept_wrapper_bit_identical(wimax12):
     """The kernel wrapper (syndrome-only inner + CRC-aware retry,
     ops/crc_accept.py) must equal the in-loop CRC decoder exactly — the
-    guarantee that lets the fused Pallas kernels stay CRC-free."""
+    guarantee that lets the fused kernel stay CRC-free."""
     llr_good, llr_bad = _frames(wimax12, "16", n_frames=6)
     llr = jnp.concatenate([llr_good, llr_bad])
     cfg = DecoderConfig(schedule="layered", crc="16", implementation="jnp",
@@ -168,8 +168,8 @@ def test_sim_step_crc_clean_at_high_snr(wimax12):
 def test_campaign_reports_split(tmp_path):
     """PointStats carries the detected/undetected/crc_rejected split through
     accumulation, checkpointing, and CSV."""
-    from myldpccppapi_tpu.campaign import CampaignConfig, WaterfallCampaign
-    from myldpccppapi_tpu.parallel.sim import SimStats
+    from myldpccppapi.campaign import CampaignConfig, WaterfallCampaign
+    from myldpccppapi.parallel.sim import SimStats
 
     def fake_step(seed, snr_db):
         z = np.int64(0)
@@ -255,7 +255,7 @@ def test_crc_without_early_exit(wimax12):
 def _bch_frames(code, m, t, n_frames=4, seed=0):
     """(llr_good, llr_bad): clean LLRs of valid LDPC codewords whose info
     blocks carry a consistent / broken outer-BCH parity field."""
-    from myldpccppapi_tpu.codes.bch import bch_attach_fn, bch_matrix
+    from myldpccppapi.codes.bch import bch_attach_fn, bch_matrix
 
     par = bch_matrix(1, m, t).shape[1]
     k_msg = code.k_info - par
@@ -297,8 +297,8 @@ def test_outer_bch_rejects_wrong_codeword(wimax12, impl):
 def test_outer_bch_wrapper_matches_inloop(wimax12):
     """The fused-kernel wrapper path (syndrome-only inner + outer-aware
     retry) must equal the in-loop outer-aided jnp decoder exactly."""
-    from myldpccppapi_tpu.ops.bp import accept_fail_fn
-    from myldpccppapi_tpu.ops.crc_accept import decode_with_crc_accept
+    from myldpccppapi.ops.bp import accept_fail_fn
+    from myldpccppapi.ops.crc_accept import decode_with_crc_accept
 
     m, t = 9, 2
     llr_good, llr_bad = _bch_frames(wimax12, m, t, n_frames=6)
@@ -323,7 +323,7 @@ def test_outer_bch_wrapper_matches_inloop(wimax12):
 def test_sim_step_cfg_outer_reports_split(wimax12):
     """sim_step with cfg.outer attaches the BCHFEC and the undetected/
     rejected split comes from the decoder's own latch."""
-    from myldpccppapi_tpu.parallel.sim import sim_step
+    from myldpccppapi.parallel.sim import sim_step
 
     cfg = DecoderConfig(schedule="layered", normalization=0.75,
                         outer=("bch", 9, 2), implementation="jnp",
@@ -338,7 +338,7 @@ def test_sim_step_cfg_outer_reports_split(wimax12):
 
 def test_cfg_crc_and_outer_compose(wimax12):
     """Both integrity checks may be configured; acceptance requires both."""
-    from myldpccppapi_tpu.ops.bp import accept_fail_fn
+    from myldpccppapi.ops.bp import accept_fail_fn
 
     cfg = DecoderConfig(crc="16", outer=("bch", 9, 2))
     fail = accept_fail_fn(wimax12, cfg)

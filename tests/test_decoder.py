@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu import Decoder, DecoderConfig, Encoder, wimax, wifi
-from myldpccppapi_tpu.codes import encode_numpy
-from myldpccppapi_tpu.ops import golden
-from myldpccppapi_tpu.ops.channel import transmit
+from myldpccppapi import Decoder, DecoderConfig, Encoder, wimax, wifi
+from myldpccppapi.codes import encode_numpy
+from myldpccppapi.ops import golden
+from myldpccppapi.ops.channel import transmit
 
 
 def _make_case(code, batch, snr_db, seed=0):
@@ -124,10 +124,10 @@ class TestSoftOutput:
     def _decode(self, schedule, **kw):
         import jax
 
-        from myldpccppapi_tpu.codes.encoder import Encoder, encode_numpy
-        from myldpccppapi_tpu.codes.wimax import wimax
-        from myldpccppapi_tpu.decoder import Decoder
-        from myldpccppapi_tpu.utils.config import DecoderConfig
+        from myldpccppapi.codes.encoder import Encoder, encode_numpy
+        from myldpccppapi.codes.wimax import wimax
+        from myldpccppapi.decoder import Decoder
+        from myldpccppapi.utils.config import DecoderConfig
 
         code = wimax(576, "1/2")
         rng = np.random.default_rng(5)
@@ -166,37 +166,42 @@ class TestSoftOutput:
         )
 
     def test_soft_output_off_returns_none(self):
-        from myldpccppapi_tpu.codes.wimax import wimax
-        from myldpccppapi_tpu.decoder import Decoder
-        from myldpccppapi_tpu.utils.config import DecoderConfig
+        from myldpccppapi.codes.wimax import wimax
+        from myldpccppapi.decoder import Decoder
+        from myldpccppapi.utils.config import DecoderConfig
 
         code = wimax(576, "1/2")
         dec = Decoder(code, DecoderConfig(implementation="jnp"))
         res = dec(jnp.ones((4, code.n), jnp.float32))
         assert res.posteriors is None
 
-    def test_fused_impl_soft_contract(self):
-        from myldpccppapi_tpu.codes.wimax import wimax
-        from myldpccppapi_tpu.decoder import Decoder
-        from myldpccppapi_tpu.utils.config import DecoderConfig
+    def test_fused_impl_soft_contract(self, monkeypatch):
+        import myldpccppapi.decoder as decoder_mod
+        from myldpccppapi.codes.wimax import wimax
+        from myldpccppapi.decoder import Decoder
+        from myldpccppapi.utils.config import DecoderConfig
 
         code = wimax(576, "1/2")
-        # the fused short-code kernel serves soft output (latched
-        # posterior, round 5); the streaming kernel does not
-        dec = Decoder(code, DecoderConfig(implementation="pallas",
-                                          soft_output=True))
-        assert dec.implementation == "pallas"
+
+        class _Gpu:
+            platform = "gpu"
+
+        monkeypatch.setattr(decoder_mod.jax, "devices", lambda *a: [_Gpu()])
+        # soft output is a jnp-path feature: auto dispatch routes it there
+        # on the card, and an explicit fused-kernel request refuses it
+        dec = Decoder(code, DecoderConfig(soft_output=True))
+        assert dec.implementation == "jnp"
         with pytest.raises(ValueError, match="soft_output"):
-            Decoder(code, DecoderConfig(implementation="pallas_stream",
+            Decoder(code, DecoderConfig(implementation="cuda",
                                         soft_output=True))
         with pytest.raises(ValueError, match="triage"):
             Decoder(code, DecoderConfig(implementation="jnp",
                                         soft_output=True, triage_iters=5))
 
     def test_edgelist_soft_output(self):
-        from myldpccppapi_tpu.codes.wimax import wimax
-        from myldpccppapi_tpu.decoder import Decoder
-        from myldpccppapi_tpu.utils.config import DecoderConfig
+        from myldpccppapi.codes.wimax import wimax
+        from myldpccppapi.decoder import Decoder
+        from myldpccppapi.utils.config import DecoderConfig
 
         code = wimax(576, "1/2")
         cfg = DecoderConfig(schedule="layered", normalization=0.75,
@@ -211,20 +216,29 @@ class TestSoftOutput:
         )
 
 
-def test_explicit_pallas_rejected_on_unsupported_code():
-    """An EXPLICIT implementation="pallas" request on a code the kernel
-    cannot serve must raise (not silently run jnp mislabeled as fused)."""
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2
-    from myldpccppapi_tpu.decoder import Decoder
-    from myldpccppapi_tpu.utils.config import DecoderConfig
+def test_explicit_pallas_rejected_on_unsupported_code(monkeypatch):
+    """An EXPLICIT fused-kernel request (implementation="cuda") on a code
+    the kernel cannot serve must raise (not silently run jnp mislabeled as
+    fused) — on a GPU, and on any other platform."""
+    import myldpccppapi.decoder as decoder_mod
+    from myldpccppapi.codes.dvbs2 import dvbs2
+    from myldpccppapi.decoder import Decoder
+    from myldpccppapi.utils.config import DecoderConfig
 
-    code = dvbs2(16200, "1/2")  # masked/multi-edge: pallas unsupported
-    with pytest.raises(ValueError, match="pallas"):
-        Decoder(code, DecoderConfig(implementation="pallas"))
+    code = dvbs2(16200, "1/2")  # masked/multi-edge: kernel unsupported
+    with pytest.raises(ValueError, match="needs a GPU"):
+        Decoder(code, DecoderConfig(implementation="cuda"))
+
+    class _Gpu:
+        platform = "gpu"
+
+    monkeypatch.setattr(decoder_mod.jax, "devices", lambda *a: [_Gpu()])
+    with pytest.raises(ValueError, match="masked"):
+        Decoder(code, DecoderConfig(implementation="cuda"))
 
 
 def test_sum_product_rejects_minsum_knobs():
-    from myldpccppapi_tpu.utils.config import DecoderConfig
+    from myldpccppapi.utils.config import DecoderConfig
 
     with pytest.raises(ValueError, match="min-sum knobs"):
         DecoderConfig(algorithm="sum-product", normalization=0.75)
@@ -236,9 +250,9 @@ def test_weight_one_row_does_not_nan():
     """A base matrix with a degree-1 row (single-parity extension) must
     decode without NaN: the excluding-self min over one edge is clamped,
     not inf (inf - inf = NaN poisoned all messages before the clamp)."""
-    from myldpccppapi_tpu.codes.qc import QCCode
-    from myldpccppapi_tpu.ops.bp import decode_qc
-    from myldpccppapi_tpu.utils.config import DecoderConfig
+    from myldpccppapi.codes.qc import QCCode
+    from myldpccppapi.ops.bp import decode_qc
+    from myldpccppapi.utils.config import DecoderConfig
 
     base = np.array([
         [1, 3, 0, -1],
@@ -256,9 +270,9 @@ def test_weight_one_row_does_not_nan():
 
 
 def test_edgelist_honors_bf16():
-    from myldpccppapi_tpu.codes.wimax import wimax
-    from myldpccppapi_tpu.decoder import Decoder
-    from myldpccppapi_tpu.utils.config import DecoderConfig
+    from myldpccppapi.codes.wimax import wimax
+    from myldpccppapi.decoder import Decoder
+    from myldpccppapi.utils.config import DecoderConfig
 
     code = wimax(576, "1/2")
     cfg = DecoderConfig(schedule="layered", normalization=0.75,
@@ -283,9 +297,9 @@ class TestSelfCorrection:
         import jax.numpy as jnp
         import numpy as np
 
-        from myldpccppapi_tpu import Decoder, DecoderConfig, Encoder, wimax
-        from myldpccppapi_tpu.codes import encode_numpy
-        from myldpccppapi_tpu.ops.channel import transmit
+        from myldpccppapi import Decoder, DecoderConfig, Encoder, wimax
+        from myldpccppapi.codes import encode_numpy
+        from myldpccppapi.ops.channel import transmit
 
         code = wimax(576, "1/2")
         enc = Encoder(code)
@@ -310,11 +324,13 @@ class TestSelfCorrection:
             assert not syn.any()
         assert fers["scms"] < fers["ms"], fers
 
-    def test_scms_validation_and_dispatch(self):
+    def test_scms_validation_and_dispatch(self, monkeypatch):
         import pytest
 
-        from myldpccppapi_tpu import Decoder, DecoderConfig, wimax
-        from myldpccppapi_tpu.coder import Coder
+        import myldpccppapi.decoder as decoder_mod
+
+        from myldpccppapi import Decoder, DecoderConfig, wimax
+        from myldpccppapi.coder import Coder
 
         with pytest.raises(ValueError, match="FLOODING"):
             DecoderConfig(schedule="layered", self_correction=True)
@@ -322,21 +338,28 @@ class TestSelfCorrection:
             DecoderConfig(algorithm="sum-product", schedule="flooding",
                           self_correction=True)
         code = wimax(576, "1/2")
-        # layered-only kernels still refuse (SCMS is flooding by validation)
+        # the edge-list path has no SCMS erasure memory
         with pytest.raises(ValueError, match="SCMS"):
             Decoder(code, DecoderConfig(
                 schedule="flooding", self_correction=True,
-                implementation="pallas_zlane"))
-        # the fused flooding kernel now serves SCMS (zero extra VMEM: the
-        # message scratch stores sent Q instead of R) — explicit request
-        # constructs instead of refusing
-        dec_k = Decoder(code, DecoderConfig(
-            schedule="flooding", self_correction=True,
-            implementation="pallas"))
-        assert dec_k.implementation == "pallas"
+                implementation="edgelist"))
         dec = Decoder(code, DecoderConfig(schedule="flooding",
                                           self_correction=True))
         assert dec.implementation == "jnp"  # auto on CPU
+
+        class _Gpu:
+            platform = "gpu"
+
+        monkeypatch.setattr(decoder_mod.jax, "devices", lambda *a: [_Gpu()])
+        # SCMS stays on jnp on the card; the fused kernel refuses it
+        dec = Decoder(code, DecoderConfig(schedule="flooding",
+                                          self_correction=True))
+        assert dec.implementation == "jnp"
+        with pytest.raises(ValueError, match="SCMS"):
+            Decoder(code, DecoderConfig(
+                schedule="flooding", self_correction=True,
+                implementation="cuda"))
+        monkeypatch.undo()
         # the Coder facade type
         coder = Coder(432, 576, "3/4B")
         coder.for_decoder(16)

@@ -3,10 +3,10 @@ descent, and lifting/encoding of optimized supports."""
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu.codes.design import (
+from myldpccppapi.codes.design import (
     _threshold, _valid, nr_support_default, optimize_nr_support,
 )
-from myldpccppapi_tpu.codes.nr import (
+from myldpccppapi.codes.nr import (
     _check_triangular, nr_base_graph, nr_code, triangular_encode_numpy,
 )
 
@@ -37,7 +37,7 @@ def test_optimized_support_lifts_and_encodes():
     code = nr_code(z=32, bg=2, table=tab)
     _check_triangular(code)
     # threshold survives lifting (protograph is preserved)
-    from myldpccppapi_tpu.codes.pexit import threshold_ebn0
+    from myldpccppapi.codes.pexit import threshold_ebn0
 
     assert threshold_ebn0(code) == pytest.approx(thr, abs=0.05)
     u = np.random.default_rng(0).integers(0, 2, (4, code.k), np.uint8)
@@ -46,7 +46,7 @@ def test_optimized_support_lifts_and_encodes():
     assert not ((cw.astype(np.int64) @ h.T) % 2).any()
     # girth-6 at the design lifting: no 4-cycles
     tab_full = nr_base_graph(2, support=b)
-    from myldpccppapi_tpu.codes.nr import NR_ZMAX
+    from myldpccppapi.codes.nr import NR_ZMAX
 
     m_b, n_b = tab_full.shape
     for i1 in range(m_b):
@@ -75,10 +75,10 @@ def test_support_shape_checked():
 
 
 def test_designed_bg2_is_the_default():
-    from myldpccppapi_tpu.codes.nr_designed import (
+    from myldpccppapi.codes.nr_designed import (
         DESIGNED_THRESHOLD_DB, designed_support,
     )
-    from myldpccppapi_tpu.codes.pexit import threshold_ebn0
+    from myldpccppapi.codes.pexit import threshold_ebn0
 
     # the shipped default lifts the designed support
     tab = nr_base_graph(2)
@@ -103,12 +103,12 @@ def test_designed_bg2_is_the_default():
 def test_dvbs2_profile_descent_and_realization():
     import warnings
 
-    from myldpccppapi_tpu.codes.design import (
+    from myldpccppapi.codes.design import (
         _dvbs2_protograph, dvbs2_start_profile, optimize_dvbs2_profile,
         realize_dvbs2_addresses,
     )
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2, ira_encode_numpy
-    from myldpccppapi_tpu.codes.pexit import protograph, threshold_ebn0
+    from myldpccppapi.codes.dvbs2 import dvbs2, ira_encode_numpy
+    from myldpccppapi.codes.pexit import protograph, threshold_ebn0
 
     n, rate = 16200, "1/2"
     bi0 = dvbs2_start_profile(n, rate)
@@ -131,11 +131,11 @@ def test_dvbs2_profile_descent_and_realization():
 
 
 def test_designed_dvbs2_defaults():
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2
-    from myldpccppapi_tpu.codes.dvbs2_designed import (
+    from myldpccppapi.codes.dvbs2 import dvbs2
+    from myldpccppapi.codes.dvbs2_designed import (
         DESIGNED_ADDRESSES, DESIGNED_THRESHOLD_DB,
     )
-    from myldpccppapi_tpu.codes.pexit import threshold_ebn0
+    from myldpccppapi.codes.pexit import threshold_ebn0
 
     for (n, rate), thr_frozen in DESIGNED_THRESHOLD_DB.items():
         code = dvbs2(n, rate)
@@ -160,7 +160,7 @@ def test_bg1_explicit_support_lifts_without_designed_seed():
 def test_dvbs2_min_degree_below_three_is_clamped():
     # min_degree < 3 is unsatisfiable under the diversity rule; the
     # optimizer must clamp instead of spinning in the sanitizer
-    from myldpccppapi_tpu.codes.design import optimize_dvbs2_profile
+    from myldpccppapi.codes.design import optimize_dvbs2_profile
 
     bi, thr = optimize_dvbs2_profile(16200, "1/2", steps=1, min_degree=2)
     assert bi.sum(axis=0).min() >= 3

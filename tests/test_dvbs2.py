@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu import Decoder, DecoderConfig
-from myldpccppapi_tpu.codes.dvbs2 import dvbs2_oracle
+from myldpccppapi import Decoder, DecoderConfig
+from myldpccppapi.codes.dvbs2 import dvbs2_oracle
 
 
 @pytest.fixture(scope="module")
@@ -47,8 +47,8 @@ def test_jnp_encode_matches_numpy(code, rng):
 def test_dvbs2_is_the_qc_constructor():
     """The blessed ``dvbs2()`` builds the IRA-QC form (fused-kernel path),
     identical to ``dvbs2_ira_qc``."""
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2, dvbs2_ira_qc
-    from myldpccppapi_tpu.codes.qc import QCCode
+    from myldpccppapi.codes.dvbs2 import dvbs2, dvbs2_ira_qc
+    from myldpccppapi.codes.qc import QCCode
 
     code = dvbs2(16200, "8/9")
     assert isinstance(code, QCCode)
@@ -100,7 +100,7 @@ def test_ira_qc_matches_standard_domain_h():
     """The QC-form H must be EXACTLY the standard accumulator H under the
     row-residue and parity-interleave permutations — including multi-edge
     blocks and the masked wrap circulant."""
-    from myldpccppapi_tpu.codes.dvbs2 import (
+    from myldpccppapi.codes.dvbs2 import (
         dvbs2_ira_qc,
         std_interleave,
         synthetic_address_table,
@@ -122,7 +122,7 @@ def test_ira_qc_matches_standard_domain_h():
 
 
 def test_ira_qc_structure_and_encode():
-    from myldpccppapi_tpu.codes.dvbs2 import (
+    from myldpccppapi.codes.dvbs2 import (
         dvbs2_ira_qc,
         ira_encode_fn,
         ira_encode_numpy,
@@ -153,8 +153,8 @@ def test_ira_qc_structure_and_encode():
 
 
 def test_ira_qc_decode_end_to_end(rng):
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2_ira_qc, ira_encode_numpy
-    from myldpccppapi_tpu.ops.bp import decode_qc
+    from myldpccppapi.codes.dvbs2 import dvbs2_ira_qc, ira_encode_numpy
+    from myldpccppapi.ops.bp import decode_qc
 
     code = dvbs2_ira_qc(16200, "8/9")
     u = rng.integers(0, 2, size=(4, code.k), dtype=np.uint8)
@@ -185,7 +185,7 @@ def test_ira_qc_full_rate_grid(n, rate):
     has the exact IRA accumulator structure, and encodes valid codewords
     with numpy/jax parity (structural check for the whole rate grid; BER
     behaviour is covered by the e2e tests on representative rates)."""
-    from myldpccppapi_tpu.codes.dvbs2 import (
+    from myldpccppapi.codes.dvbs2 import (
         _SHORT_K_LDPC, dvbs2_ira_qc, ira_encode_fn, ira_encode_numpy,
     )
 
@@ -212,7 +212,7 @@ def test_synthetic_address_tables_girth6():
     """Synthetic tables must be 4-cycle-free in the lifted standard-domain
     H (girth >= 6), like the published Annex B/C tables (measured on the NR
     family, short cycles cost 4-23x in FER)."""
-    from myldpccppapi_tpu.codes.dvbs2 import (_SHORT_K_LDPC,
+    from myldpccppapi.codes.dvbs2 import (_SHORT_K_LDPC,
                                               _count_std_4cycles,
                                               synthetic_address_table)
 
@@ -227,7 +227,7 @@ def test_parse_address_table_drop_in():
     """The Annex B/C text loader: parsing a table in the standard's layout
     and passing it to dvbs2() must equal constructing from the tuple
     directly (the documented bit-true upgrade path, PROVENANCE.md)."""
-    from myldpccppapi_tpu.codes.dvbs2 import (
+    from myldpccppapi.codes.dvbs2 import (
         dvbs2, parse_address_table, synthetic_address_table,
     )
 
@@ -248,7 +248,7 @@ def test_parse_address_table_drop_in():
 # ---------------------------------------------------------------------------
 
 def test_bit_interleaver_symbol_grouping():
-    from myldpccppapi_tpu.codes.dvbs2 import bit_interleave
+    from myldpccppapi.codes.dvbs2 import bit_interleave
 
     n, nc = 12, 3
     x = jnp.arange(n)
@@ -263,7 +263,7 @@ def test_bit_interleaver_symbol_grouping():
 
 @pytest.mark.parametrize("nc", [3, 4, 5])
 def test_bit_interleaver_roundtrip(nc):
-    from myldpccppapi_tpu.codes.dvbs2 import bit_deinterleave, bit_interleave
+    from myldpccppapi.codes.dvbs2 import bit_deinterleave, bit_interleave
 
     rng = np.random.default_rng(nc)
     x = rng.standard_normal((2, 60 * nc)).astype(np.float32)
@@ -272,7 +272,7 @@ def test_bit_interleaver_roundtrip(nc):
 
 
 def test_bit_interleaver_col_order_roundtrip():
-    from myldpccppapi_tpu.codes.dvbs2 import bit_deinterleave, bit_interleave
+    from myldpccppapi.codes.dvbs2 import bit_deinterleave, bit_interleave
 
     order = (2, 1, 0)
     rng = np.random.default_rng(9)
@@ -287,11 +287,11 @@ def test_bit_interleaver_col_order_roundtrip():
 def test_interleaved_16apsk_receive_roundtrip():
     """encode -> §5.3.3 interleave -> 16APSK -> demap -> deinterleave ->
     decode recovers the payload (noiseless)."""
-    from myldpccppapi_tpu import Decoder, DecoderConfig
-    from myldpccppapi_tpu.codes.dvbs2 import (
+    from myldpccppapi import Decoder, DecoderConfig
+    from myldpccppapi.codes.dvbs2 import (
         bit_deinterleave, bit_interleave, dvbs2, ira_encode_numpy,
     )
-    from myldpccppapi_tpu.ops.modulation import apsk16, demap_llr, modulate
+    from myldpccppapi.ops.modulation import apsk16, demap_llr, modulate
 
     code = dvbs2(16200, "1/2")
     rng = np.random.default_rng(5)

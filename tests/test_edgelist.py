@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu import Decoder, DecoderConfig, Encoder, wimax
-from myldpccppapi_tpu.codes import encode_numpy, regular
-from myldpccppapi_tpu.ops.bp import decode_qc
-from myldpccppapi_tpu.ops.bp_edgelist import build_edge_index, decode_edgelist
-from myldpccppapi_tpu.ops.channel import transmit
+from myldpccppapi import Decoder, DecoderConfig, Encoder, wimax
+from myldpccppapi.codes import encode_numpy, regular
+from myldpccppapi.ops.bp import decode_qc
+from myldpccppapi.ops.bp_edgelist import build_edge_index, decode_edgelist
+from myldpccppapi.ops.channel import transmit
 
 
 def _case(code, batch, snr_db, seed=0):

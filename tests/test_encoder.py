@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu.codes import Encoder, encode_numpy, ru_precompute, wimax, wifi
-from myldpccppapi_tpu.codes.base_matrices import WIMAX_SEEDS
+from myldpccppapi.codes import Encoder, encode_numpy, ru_precompute, wimax, wifi
+from myldpccppapi.codes.base_matrices import WIMAX_SEEDS
 
 
 @pytest.mark.parametrize("rate", sorted(WIMAX_SEEDS))

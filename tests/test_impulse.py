@@ -3,9 +3,9 @@ healthy defaults stay clean, and the probe names the offending columns."""
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu.codes.dvbs2 import dvbs2
-from myldpccppapi_tpu.codes.wimax import wimax
-from myldpccppapi_tpu.ops.impulse import impulse_probe
+from myldpccppapi.codes.dvbs2 import dvbs2
+from myldpccppapi.codes.wimax import wimax
+from myldpccppapi.ops.impulse import impulse_probe
 
 
 def test_wimax_576_finds_low_weight_codeword():
@@ -25,8 +25,8 @@ def test_single_row_class_group_is_flagged():
     """A degree-3 group whose addresses sit in ONE residue class (the
     measured round-4 floor bug) must light up; the shipped designed table
     must stay clean on the same probe budget."""
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2_ira_qc
-    from myldpccppapi_tpu.codes.dvbs2_designed import DESIGNED_ADDRESSES
+    from myldpccppapi.codes.dvbs2 import dvbs2_ira_qc
+    from myldpccppapi.codes.dvbs2_designed import DESIGNED_ADDRESSES
 
     good = DESIGNED_ADDRESSES[(16200, "1/2")]
     q = 25

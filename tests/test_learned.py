@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu import Decoder, DecoderConfig, Encoder, wimax
-from myldpccppapi_tpu.codes import encode_numpy
-from myldpccppapi_tpu.ops.bp import canon_weights, decode_qc, weights_mode
-from myldpccppapi_tpu.ops.channel import transmit
-from myldpccppapi_tpu.ops.learned import (
+from myldpccppapi import Decoder, DecoderConfig, Encoder, wimax
+from myldpccppapi.codes import encode_numpy
+from myldpccppapi.ops.bp import canon_weights, decode_qc, weights_mode
+from myldpccppapi.ops.channel import transmit
+from myldpccppapi.ops.learned import (
     LearnedWeights,
     make_unrolled,
     soft_ber_loss,
@@ -83,22 +83,8 @@ def test_distinct_per_layer_weights_decode():
     assert (np.asarray(res.bits)[:, : code.k] == u).all()
 
 
-def test_per_layer_weights_pallas_interpret_bitexact():
-    code = wimax(576, "1/2")
-    _, llr = _case(code, batch=8, snr_db=3.5, seed=4)
-    alphas = tuple(0.6 + 0.4 * i / code.m_b for i in range(code.m_b))
-    cfg = DecoderConfig(schedule="layered", normalization=alphas,
-                        offset=(0.05,) * code.m_b)
-    from myldpccppapi_tpu.ops.pallas_bp import decode_qc_pallas
-
-    ref = decode_qc(code, cfg, llr)
-    res = decode_qc_pallas(code, cfg, llr, True)
-    assert (np.asarray(res.bits) == np.asarray(ref.bits)).all()
-    assert (np.asarray(res.iterations) == np.asarray(ref.iterations)).all()
-
-
 def test_edgelist_rejects_weight_schedules():
-    from myldpccppapi_tpu.ops.bp_edgelist import build_edge_index, decode_edgelist
+    from myldpccppapi.ops.bp_edgelist import build_edge_index, decode_edgelist
 
     code = wimax(576, "1/2")
     rows, cols = code.h_coo()
@@ -106,16 +92,6 @@ def test_edgelist_rejects_weight_schedules():
     cfg = DecoderConfig(normalization=(0.75,) * code.m_b)
     with pytest.raises(NotImplementedError):
         decode_edgelist(idx, cfg, jnp.zeros((2, code.n)))
-
-
-def test_stream_refuses_weight_schedules():
-    from myldpccppapi_tpu.ops.pallas_stream import stream_supported
-
-    code = wimax(576, "1/2")
-    assert stream_supported(code, DecoderConfig())
-    assert not stream_supported(
-        code, DecoderConfig(normalization=(0.75,) * code.m_b)
-    )
 
 
 # ---------------------------------------------------------------------------

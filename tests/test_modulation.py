@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from myldpccppapi_tpu.ops import modulation as M
-from myldpccppapi_tpu.ops.modulation import demap_llr, make_modulation, modulate
+from myldpccppapi.ops import modulation as M
+from myldpccppapi.ops.modulation import demap_llr, make_modulation, modulate
 
 ALL_MODS = sorted(M.MODULATIONS)
 
@@ -130,9 +130,9 @@ def test_modulate_rejects_ragged_bits():
 
 
 def _wimax_sim(mod_name, snr_db, batch, seed=0, demap="maxlog"):
-    from myldpccppapi_tpu.codes.wimax import wimax
-    from myldpccppapi_tpu.parallel.sim import sim_step
-    from myldpccppapi_tpu.utils.config import DecoderConfig
+    from myldpccppapi.codes.wimax import wimax
+    from myldpccppapi.parallel.sim import sim_step
+    from myldpccppapi.utils.config import DecoderConfig
 
     code = wimax(576, "1/2")
     cfg = DecoderConfig(algorithm="min-sum", schedule="layered",
@@ -175,9 +175,9 @@ def test_qpsk_waterfall_matches_bpsk_at_plus_3dB():
 
 
 def test_sim_step_rejects_llr_scale_with_mod():
-    from myldpccppapi_tpu.codes.wimax import wimax
-    from myldpccppapi_tpu.parallel.sim import sim_step
-    from myldpccppapi_tpu.utils.config import DecoderConfig
+    from myldpccppapi.codes.wimax import wimax
+    from myldpccppapi.parallel.sim import sim_step
+    from myldpccppapi.utils.config import DecoderConfig
 
     code = wimax(576, "1/2")
     cfg = DecoderConfig(implementation="jnp")

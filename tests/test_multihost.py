@@ -8,7 +8,9 @@ BASELINE config-5 "N>=2 hosts with psum'd frame-error stats" requirement.
 
 The oracle is exact: the step folds each device's GLOBAL mesh position
 into the PRNG key, so statistics must be BIT-IDENTICAL no matter how the
-same global mesh is partitioned into processes (2x2 vs 1x4 here).
+same global mesh is partitioned into processes (2x2 vs 1x4 here).  The
+workers stay on the CPU backend whatever the machine has: one process per
+card at most.
 """
 import pytest
 import json

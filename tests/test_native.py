@@ -6,8 +6,8 @@ only that the NumPy fallbacks keep working (the dispatch contract).
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu import native
-from myldpccppapi_tpu.codes.gf2 import gf2_inv, gf2_matmul, gf2_rank
+from myldpccppapi import native
+from myldpccppapi.codes.gf2 import gf2_inv, gf2_matmul, gf2_rank
 
 
 def _numpy_rref(m):
@@ -82,10 +82,10 @@ def test_golden_decoder_matches_numpy(rng):
     import jax
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import wimax
-    from myldpccppapi_tpu.codes.encoder import Encoder, encode_numpy
-    from myldpccppapi_tpu.ops import golden
-    from myldpccppapi_tpu.ops.channel import transmit
+    from myldpccppapi import wimax
+    from myldpccppapi.codes.encoder import Encoder, encode_numpy
+    from myldpccppapi.ops import golden
+    from myldpccppapi.ops.channel import transmit
 
     code = wimax(576, "1/2")
     enc = Encoder(code)
@@ -104,8 +104,8 @@ def _mixed_conv_llr(code, rng, frames, snr_db, seed=0):
     import jax
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu.codes.encoder import Encoder, encode_numpy
-    from myldpccppapi_tpu.ops.channel import transmit
+    from myldpccppapi.codes.encoder import Encoder, encode_numpy
+    from myldpccppapi.ops.channel import transmit
 
     enc = Encoder(code)
     u = rng.integers(0, 2, size=(frames, code.k_info), dtype=np.uint8)
@@ -124,8 +124,8 @@ def test_layered_golden_bitexact_vs_jnp(rng, norm, offset):
     each other."""
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import DecoderConfig, wimax
-    from myldpccppapi_tpu.ops.bp import decode_qc
+    from myldpccppapi import DecoderConfig, wimax
+    from myldpccppapi.ops.bp import decode_qc
 
     code = wimax(576, "3/4B")
     _, llr = _mixed_conv_llr(code, rng, 32, snr_db=4.0)
@@ -148,9 +148,9 @@ def test_layered_golden_bitexact_masked_multiedge(rng):
     is observable in f32."""
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import DecoderConfig
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2_ira_qc
-    from myldpccppapi_tpu.ops.bp import decode_qc
+    from myldpccppapi import DecoderConfig
+    from myldpccppapi.codes.dvbs2 import dvbs2_ira_qc
+    from myldpccppapi.ops.bp import decode_qc
 
     code = dvbs2_ira_qc(16200, "1/2")
     _, llr = _mixed_conv_llr(code, rng, 8, snr_db=0.6)
@@ -166,28 +166,6 @@ def test_layered_golden_bitexact_masked_multiedge(rng):
 
 
 @pytest.mark.skipif(not native.available(), reason="native lib not built")
-def test_layered_golden_pins_pallas_kernel(rng):
-    """Native layered golden vs the fused Pallas kernel (interpret mode):
-    the kernel chain jnp <-> pallas <-> zlane is now anchored to an
-    independent scalar implementation, not just to itself."""
-    import jax.numpy as jnp
-
-    from myldpccppapi_tpu import DecoderConfig, wimax
-    from myldpccppapi_tpu.ops.pallas_bp import decode_qc_pallas
-
-    code = wimax(576, "3/4B")
-    _, llr = _mixed_conv_llr(code, rng, 16, snr_db=4.0)
-    nb, nc, ni = native.decode_golden_layered_native(
-        code, llr, max_iters=8, normalization=0.75)
-    cfg = DecoderConfig(algorithm="min-sum", schedule="layered", max_iters=8,
-                        normalization=0.75)
-    res = decode_qc_pallas(code, cfg, jnp.asarray(llr), interpret=True)
-    assert (np.asarray(res.converged) == nc).all()
-    assert (np.asarray(res.iterations) == ni).all()
-    assert (np.asarray(res.bits) == nb).all()
-
-
-@pytest.mark.skipif(not native.available(), reason="native lib not built")
 @pytest.mark.parametrize("scms,norm", [(False, 1.0), (False, 0.75),
                                        (True, 1.0)])
 def test_flooding_golden_bitexact_vs_jnp(rng, scms, norm):
@@ -195,11 +173,11 @@ def test_flooding_golden_bitexact_vs_jnp(rng, scms, norm):
     flooding path bit-exactly — bits, convergence, AND iteration counts —
     including the SCMS erasure trajectory.  Before it, flooding was pinned
     only statistically (decode_golden_minsum uses the reference's
-    row-sorted posterior order) and SCMS only jnp <-> pallas."""
+    row-sorted posterior order)."""
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import DecoderConfig, wimax
-    from myldpccppapi_tpu.ops.bp import decode_qc
+    from myldpccppapi import DecoderConfig, wimax
+    from myldpccppapi.ops.bp import decode_qc
 
     code = wimax(576, "1/2")
     _, llr = _mixed_conv_llr(code, rng, 32, snr_db=2.5, seed=2)
@@ -224,9 +202,9 @@ def test_flooding_golden_bitexact_masked_multiedge(rng):
     zero contribution — same arithmetic)."""
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import DecoderConfig
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2_ira_qc
-    from myldpccppapi_tpu.ops.bp import decode_qc
+    from myldpccppapi import DecoderConfig
+    from myldpccppapi.codes.dvbs2 import dvbs2_ira_qc
+    from myldpccppapi.ops.bp import decode_qc
 
     code = dvbs2_ira_qc(16200, "1/2")
     _, llr = _mixed_conv_llr(code, rng, 8, snr_db=0.6)
@@ -242,28 +220,6 @@ def test_flooding_golden_bitexact_masked_multiedge(rng):
 
 
 @pytest.mark.skipif(not native.available(), reason="native lib not built")
-def test_scms_golden_pins_pallas_kernel(rng):
-    """Native SCMS flooding golden vs the fused kernel (interpret mode):
-    the SCMS tier is anchored to an independent scalar implementation,
-    not just jnp <-> pallas to each other."""
-    import jax.numpy as jnp
-
-    from myldpccppapi_tpu import DecoderConfig, wimax
-    from myldpccppapi_tpu.ops.pallas_bp import decode_qc_pallas
-
-    code = wimax(576, "1/2")
-    _, llr = _mixed_conv_llr(code, rng, 16, snr_db=2.5, seed=3)
-    nb, nc, ni = native.decode_golden_flooding_native(
-        code, llr, max_iters=10, self_correction=True)
-    cfg = DecoderConfig(algorithm="min-sum", schedule="flooding",
-                        max_iters=10, self_correction=True)
-    res = decode_qc_pallas(code, cfg, jnp.asarray(llr), interpret=True)
-    assert (np.asarray(res.converged) == nc).all()
-    assert (np.asarray(res.iterations) == ni).all()
-    assert (np.asarray(res.bits) == nb).all()
-
-
-@pytest.mark.skipif(not native.available(), reason="native lib not built")
 def test_sp_ref_golden_behaviour(rng):
     """Reference probability-domain SP golden (exp(8y) quirk,
     decodeCL.c:3-108): converged frames are valid codewords; at a clean
@@ -271,8 +227,8 @@ def test_sp_ref_golden_behaviour(rng):
     channel scale is no worse (the documented strict improvement)."""
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import DecoderConfig, wimax
-    from myldpccppapi_tpu.ops.bp import decode_qc
+    from myldpccppapi import DecoderConfig, wimax
+    from myldpccppapi.ops.bp import decode_qc
 
     code = wimax(576, "1/2")
     u, y = _mixed_conv_llr(code, rng, 64, snr_db=3.0)
@@ -295,7 +251,7 @@ def test_sp_ref_golden_behaviour(rng):
 def test_gf2_dispatch_large(rng):
     """gf2_rref on a >=256-wide matrix goes through the native path when
     available and must agree with the small-path implementation."""
-    from myldpccppapi_tpu.codes.gf2 import gf2_rref
+    from myldpccppapi.codes.gf2 import gf2_rref
 
     m = rng.integers(0, 2, size=(260, 300), dtype=np.uint8)
     rr, piv = gf2_rref(m)

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu import Decoder, DecoderConfig
-from myldpccppapi_tpu.codes.nr import (
+from myldpccppapi import Decoder, DecoderConfig
+from myldpccppapi.codes.nr import (
     nr_code,
     rate_match_bits,
     rate_match_llr,
@@ -101,7 +101,7 @@ def test_nr_end_to_end_decode(code, rng):
 
 
 def test_lifting_sets_and_parser():
-    from myldpccppapi_tpu.codes.nr import (
+    from myldpccppapi.codes.nr import (
         NR_LIFTING_SETS,
         lifting_set_index,
         nr_code,
@@ -127,7 +127,7 @@ def test_lifting_sets_and_parser():
     import numpy as np
 
     full = np.full((46, 68, 8), -1, dtype=np.int32)
-    from myldpccppapi_tpu.codes.nr import nr_base_graph
+    from myldpccppapi.codes.nr import nr_base_graph
 
     raw = nr_base_graph(1)
     for s in range(8):
@@ -142,7 +142,7 @@ def test_rv_rate_matching_roundtrip():
     recovers every transmitted position with soft combining."""
     import numpy as np
 
-    from myldpccppapi_tpu.codes.nr import (
+    from myldpccppapi.codes.nr import (
         nr_code,
         rate_match_bits,
         rate_match_llr,
@@ -178,7 +178,7 @@ def test_rv_soft_combining():
     """Two transmissions (rv0 + rv2) accumulate LLRs in the buffer."""
     import numpy as np
 
-    from myldpccppapi_tpu.codes.nr import nr_code, rate_match_llr
+    from myldpccppapi.codes.nr import nr_code, rate_match_llr
 
     code = nr_code(z=16, bg=2)
     n_cb = code.n - code.punctured_front
@@ -198,7 +198,7 @@ def test_nr_lifting_grid(bg, z):
     encode validity (numpy/jax parity)."""
     import numpy as np
 
-    from myldpccppapi_tpu.codes.nr import (
+    from myldpccppapi.codes.nr import (
         lifting_set_index, nr_code, triangular_encode_fn,
         triangular_encode_numpy,
     )
@@ -225,8 +225,8 @@ def test_harq_rv_retransmission_e2e():
     TS 38.212 incremental-redundancy contract end-to-end."""
     import numpy as np
 
-    from myldpccppapi_tpu import Decoder, DecoderConfig
-    from myldpccppapi_tpu.codes.nr import (
+    from myldpccppapi import Decoder, DecoderConfig
+    from myldpccppapi.codes.nr import (
         nr_code, rate_match_bits, rate_match_llr, triangular_encode_fn,
     )
 
@@ -260,7 +260,7 @@ def test_synthetic_base_graph_girth6_at_design_lifting():
     (BENCH_NOTES round-2 NR waterfall)."""
     import itertools
 
-    from myldpccppapi_tpu.codes.nr import NR_ZMAX, nr_base_graph
+    from myldpccppapi.codes.nr import NR_ZMAX, nr_base_graph
 
     for bg in (1, 2):
         base = nr_base_graph(bg)
@@ -273,7 +273,7 @@ def test_synthetic_base_graph_girth6_at_design_lifting():
 
 
 def test_harq_combine_single_equals_rate_match(rng):
-    from myldpccppapi_tpu.codes.nr import harq_combine, nr_code, rate_match_llr
+    from myldpccppapi.codes.nr import harq_combine, nr_code, rate_match_llr
 
     code = nr_code(z=16, bg=2)
     e = code.n - code.punctured_front
@@ -290,7 +290,7 @@ def test_harq_incremental_redundancy_recovers(rng):
     """IR HARQ (TS 38.212 §5.4.2.1): an rv0 transmission too weak to decode
     alone becomes decodable after soft-combining an rv2 retransmission; a
     same-rv chase retransmission also recovers (LLRs add)."""
-    from myldpccppapi_tpu.codes.nr import (
+    from myldpccppapi.codes.nr import (
         harq_combine, nr_code, rate_match_bits, triangular_encode_numpy,
     )
 

@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from myldpccppapi_tpu.codes.nr_transport import (
+from myldpccppapi.codes.nr_transport import (
     FILLER_LLR,
     NRTransport,
     _selection_runs,
@@ -14,7 +14,7 @@ from myldpccppapi_tpu.codes.nr_transport import (
     plan_tb,
     select_base_graph,
 )
-from myldpccppapi_tpu.utils.config import DecoderConfig
+from myldpccppapi.utils.config import DecoderConfig
 
 
 def _bpsk_llr(bits, scale=4.0):

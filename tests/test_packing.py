@@ -3,7 +3,7 @@ reference (``MyLdpc.cpp:643-646``, ``decodeCL.c:188-199``)."""
 import jax.numpy as jnp
 import numpy as np
 
-from myldpccppapi_tpu.ops.packing import (
+from myldpccppapi.ops.packing import (
     pack_bits,
     pack_bits_np,
     unpack_bits,

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu import DecoderConfig, Encoder, wimax
-from myldpccppapi_tpu.parallel import (
+from myldpccppapi import DecoderConfig, Encoder, wimax
+from myldpccppapi.parallel import (
     make_mesh,
     make_sharded_campaign_step,
     sim_step,
@@ -88,9 +88,9 @@ def test_sharded_campaign_step_with_crc():
     import jax.numpy as jnp
     import numpy as np
 
-    from myldpccppapi_tpu import DecoderConfig
-    from myldpccppapi_tpu.codes import wimax
-    from myldpccppapi_tpu.parallel import make_mesh, make_sharded_campaign_step
+    from myldpccppapi import DecoderConfig
+    from myldpccppapi.codes import wimax
+    from myldpccppapi.parallel import make_mesh, make_sharded_campaign_step
 
     code = wimax(576, "1/2")
     cfg = DecoderConfig(schedule="layered", max_iters=10, crc="16",
@@ -113,7 +113,7 @@ def test_sharded_step_with_modulation(setup):
     """The higher-order-modulation channel (complex AWGN + soft demap)
     composes with shard_map/psum: sharded statistics at a clean operating
     point decode error-free, and frame accounting is exact."""
-    from myldpccppapi_tpu.ops.modulation import make_modulation
+    from myldpccppapi.ops.modulation import make_modulation
 
     code, cfg, _ = setup
     mesh = make_mesh((2, 4), ("snr", "data"))

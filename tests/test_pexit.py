@@ -3,7 +3,7 @@ rate monotonicity, puncturing, and multi-edge protographs."""
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu.codes.pexit import (
+from myldpccppapi.codes.pexit import (
     J, J_inv, pexit_run, protograph, threshold_ebn0, threshold_sigma,
 )
 
@@ -35,7 +35,7 @@ def test_multiedge_protograph_equals_expanded():
 
 
 def test_wimax_thresholds_monotone_in_rate_and_above_capacity():
-    from myldpccppapi_tpu.codes.wimax import wimax
+    from myldpccppapi.codes.wimax import wimax
 
     # BPSK capacity limits (Eb/N0, dB) per rate
     capacity = {"1/2": 0.187, "3/4B": 1.626, "5/6": 2.362}
@@ -48,13 +48,13 @@ def test_wimax_thresholds_monotone_in_rate_and_above_capacity():
 
 def test_wimax_half_rate_beats_regular():
     # the 802.16e irregular profile must beat the (3,6) regular ensemble
-    from myldpccppapi_tpu.codes.wimax import wimax
+    from myldpccppapi.codes.wimax import wimax
 
     assert threshold_ebn0(wimax(576, "1/2")) < 1.0
 
 
 def test_nr_puncturing_is_handled():
-    from myldpccppapi_tpu.codes.nr import nr_code
+    from myldpccppapi.codes.nr import nr_code
 
     code = nr_code(z=32, bg=1)
     assert code.punctured_front == 2 * 32
@@ -72,7 +72,7 @@ def test_nr_puncturing_is_handled():
 
 
 def test_dvbs2_multiedge_and_mask_paths():
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2
+    from myldpccppapi.codes.dvbs2 import dvbs2
 
     code = dvbs2(16200, "1/2")
     b = protograph(code)

@@ -3,7 +3,7 @@ import json
 
 import numpy as np
 
-from myldpccppapi_tpu.utils.profiling import (
+from myldpccppapi.utils.profiling import (
     PhaseTimer,
     emit_metrics,
     iterations_histogram,

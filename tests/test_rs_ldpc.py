@@ -6,10 +6,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from myldpccppapi_tpu import Decoder, DecoderConfig
-from myldpccppapi_tpu.codes.encoder import Encoder, encode_numpy
-from myldpccppapi_tpu.codes.rs_ldpc import gf2m_tables, rs_ldpc
-from myldpccppapi_tpu.ops.channel import transmit
+from myldpccppapi import Decoder, DecoderConfig
+from myldpccppapi.codes.encoder import Encoder, encode_numpy
+from myldpccppapi.codes.rs_ldpc import gf2m_tables, rs_ldpc
+from myldpccppapi.ops.channel import transmit
 
 
 def _small():
@@ -109,62 +109,8 @@ def test_jnp_xor_path_matches_edgelist(schedule):
     )
 
 
-@pytest.mark.parametrize("schedule", ["layered", "flooding"])
-def test_pallas_xor_butterfly_matches_jnp(schedule):
-    from myldpccppapi_tpu.ops.bp import decode_qc
-    from myldpccppapi_tpu.ops.pallas_bp import decode_qc_pallas, supported
-
-    code = _small()
-    assert supported(code)
-    enc = Encoder(code, code.encoder_matrices)
-    rng = np.random.default_rng(3)
-    u = rng.integers(0, 2, size=(8, code.k_info), dtype=np.uint8)
-    cw = encode_numpy(code.encoder_matrices, u)
-    llr, _ = transmit(jax.random.PRNGKey(4), jnp.asarray(cw), snr_db=4.5)
-    cfg = DecoderConfig(schedule=schedule, normalization=0.75)
-    ref = decode_qc(code, cfg, llr)
-    res = decode_qc_pallas(code, cfg, llr, True)  # interpret mode
-    assert (np.asarray(res.bits) == np.asarray(ref.bits)).all()
-    assert (np.asarray(res.iterations) == np.asarray(ref.iterations)).all()
-    assert (np.asarray(res.converged) == np.asarray(ref.converged)).all()
-
-
-def test_pallas_xor_scms_matches_jnp():
-    """SCMS on the xor-group (additive-permutation) fused kernel: auto
-    dispatch routes RS-LDPC self_correction requests to the kernel since
-    it serves SCMS, so pin the combination bit-exactly at a deep SNR
-    where erasures fire."""
-    from myldpccppapi_tpu.ops.bp import decode_qc
-    from myldpccppapi_tpu.ops.pallas_bp import decode_qc_pallas, supported
-
-    code = _small()
-    assert supported(code)
-    enc = Encoder(code, code.encoder_matrices)
-    rng = np.random.default_rng(5)
-    u = rng.integers(0, 2, size=(8, code.k_info), dtype=np.uint8)
-    cw = encode_numpy(code.encoder_matrices, u)
-    llr, _ = transmit(jax.random.PRNGKey(6), jnp.asarray(cw), snr_db=3.0)
-    cfg = DecoderConfig(schedule="flooding", self_correction=True,
-                        max_iters=10)
-    ref = decode_qc(code, cfg, llr)
-    res = decode_qc_pallas(code, cfg, llr, True)  # interpret mode
-    assert (np.asarray(res.bits) == np.asarray(ref.bits)).all()
-    assert (np.asarray(res.iterations) == np.asarray(ref.iterations)).all()
-    assert (np.asarray(res.converged) == np.asarray(ref.converged)).all()
-
-
-def test_xor_align_is_the_permutation():
-    from myldpccppapi_tpu.ops.pallas_bp import _xor_align
-
-    rng = np.random.default_rng(4)
-    x = jnp.asarray(rng.standard_normal((16, 4)).astype(np.float32))
-    for c in range(16):
-        got = np.asarray(_xor_align(x, c))
-        np.testing.assert_array_equal(got, np.asarray(x)[np.arange(16) ^ c])
-
-
 def test_byte_stream_codec():
-    from myldpccppapi_tpu.coder import make_codec
+    from myldpccppapi.coder import make_codec
 
     c = make_codec("rs_ldpc", 1024)
     c.for_encoder()
@@ -192,7 +138,7 @@ def test_validation_errors():
 # ---------------------------------------------------------------------------
 
 def test_rs_ldpc_from_n_validates():
-    from myldpccppapi_tpu.codes.rs_ldpc import rs_ldpc_from_n
+    from myldpccppapi.codes.rs_ldpc import rs_ldpc_from_n
 
     code = rs_ldpc_from_n(2048)
     assert (code.n, code.k_info) == (2048, 1723)
@@ -201,27 +147,20 @@ def test_rs_ldpc_from_n_validates():
 
 
 def test_make_codec_rs_ldpc_rejects_explicit_rate():
-    from myldpccppapi_tpu import make_codec
+    from myldpccppapi import make_codec
 
     with pytest.raises(ValueError, match="fixed"):
         make_codec("rs_ldpc", 2048, "1/3")
 
 
 def test_xor_code_iter_weights_dispatch_to_jnp():
-    # per-iteration learned schedules have no fused-kernel serving; the
-    # xor dispatch branch must route them to jnp like the cyclic branch
-    from myldpccppapi_tpu.decoder import _implementation
-    from myldpccppapi_tpu.utils.config import DecoderConfig
+    # per-iteration learned schedules have no fused-kernel serving; xor
+    # codes must route to jnp like cyclic ones
+    from myldpccppapi.decoder import select_implementation
+    from myldpccppapi.utils.config import DecoderConfig
 
     code = rs_ldpc(s=4, gamma=4, rho=8)
     cfg = DecoderConfig(normalization=((0.7,) * 4, (0.8,) * 4))
-    assert _implementation(cfg, code) == "jnp"
+    assert select_implementation(code, cfg) == "jnp"
 
 
-def test_explicit_stream_kernel_refuses_xor_codes_loudly():
-    from myldpccppapi_tpu import Decoder
-    from myldpccppapi_tpu.utils.config import DecoderConfig
-
-    code = rs_ldpc(s=4, gamma=4, rho=8)
-    with pytest.raises(ValueError, match="pallas_stream"):
-        Decoder(code, DecoderConfig(implementation="pallas_stream"))

@@ -7,9 +7,9 @@ away (PROVENANCE.md)."""
 import numpy as np
 import pytest
 
-from myldpccppapi_tpu.codes.nr import nr_base_graph, nr_code, parse_bg_table
-from myldpccppapi_tpu.codes.dvbs2 import parse_address_table
-from myldpccppapi_tpu.codes import tables
+from myldpccppapi.codes.nr import nr_base_graph, nr_code, parse_bg_table
+from myldpccppapi.codes.dvbs2 import parse_address_table
+from myldpccppapi.codes import tables
 
 
 # ---------------------------------------------------------------------------
@@ -138,8 +138,8 @@ def test_shipped_default_fingerprints_pinned():
     event — note it in PROVENANCE.md)."""
     import warnings
 
-    from myldpccppapi_tpu.codes.dvbs2 import synthetic_address_table
-    from myldpccppapi_tpu.codes.dvbs2_designed import DESIGNED_ADDRESSES
+    from myldpccppapi.codes.dvbs2 import synthetic_address_table
+    from myldpccppapi.codes.dvbs2_designed import DESIGNED_ADDRESSES
 
     assert tables.table_fingerprint(nr_base_graph(1)) == (
         "033f5566f6e532c8528815db5e6c18707b3943f8f7ad895fb2229c8aec02c381")

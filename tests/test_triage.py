@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from myldpccppapi_tpu import Decoder, DecoderConfig, Encoder, wimax
-from myldpccppapi_tpu.codes import encode_numpy
-from myldpccppapi_tpu.ops.channel import transmit
+from myldpccppapi import Decoder, DecoderConfig, Encoder, wimax
+from myldpccppapi.codes import encode_numpy
+from myldpccppapi.ops.channel import transmit
 
 
 def _llr(code, batch, snr_db, seed=0):
@@ -65,13 +65,13 @@ def test_triage_noop_when_cap_covers_batch():
 def test_triage_applies_to_edgelist():
     """triage_iters must not be silently dropped on the edge-list path:
     results stay bit-identical to single-pass (regression: the wrapper was
-    gated to pallas/zlane/jnp only)."""
+    gated to the fused kernels and jnp only)."""
     import dataclasses
 
     import jax.numpy as jnp
 
-    from myldpccppapi_tpu import Decoder, DecoderConfig
-    from myldpccppapi_tpu.codes.dvbs2 import dvbs2_oracle
+    from myldpccppapi import Decoder, DecoderConfig
+    from myldpccppapi.codes.dvbs2 import dvbs2_oracle
 
     code = dvbs2_oracle(16200, "8/9")
     rng = np.random.default_rng(2)
